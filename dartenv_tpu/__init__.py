@@ -1,10 +1,10 @@
-"""dartenv_tpu: a TPU-native rigid-body physics engine + RL env suite.
+"""dartenv_tpu: a JAX rigid-body physics engine + RL env suite.
 
 Brand-new JAX implementation with the capabilities of the reference stack
 (dart-env on pydart2 on DART — see SURVEY.md): Featherstone articulated
 dynamics, velocity-level boxed-LCP contact/friction, joint limits, and the
 gym-0.9.x-style env API, all as pure jittable functions vmapped over
-thousands of envs and sharded over TPU meshes.
+thousands of envs and sharded over device meshes.
 
 Top-level API mirrors the reference's `gym` surface:
     import dartenv_tpu as gym

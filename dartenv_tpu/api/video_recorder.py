@@ -1,8 +1,8 @@
 """Video recording for Monitor (reference: `gym/monitoring/
 video_recorder.py:~1-300` † — SURVEY.md §2.1/§3.5).
 
-The reference pipes rgb_array frames into an ffmpeg subprocess.  TPU hosts
-ship without ffmpeg, so the encoder backend degrades gracefully:
+The reference pipes rgb_array frames into an ffmpeg subprocess.  Accelerator
+hosts often ship without ffmpeg, so the encoder backend degrades gracefully:
 ffmpeg subprocess (mp4) -> imageio (gif) -> raw .npy frame stack.  Either
 way the Monitor manifest records the artifact.
 """

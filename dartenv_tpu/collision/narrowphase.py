@@ -1,6 +1,6 @@
 """Analytic primitive collision (fixed contact slots, masked).
 
-TPU-native replacement of the reference collision stack
+JAX replacement of the reference collision stack
 (`dart/collision/**` †: FCL/dart-native narrowphase + manifold generation —
 SURVEY.md §2.4 "collision").  The five tasks only need primitive-vs-halfspace
 (and optionally primitive-vs-primitive self pairs), so instead of a general
@@ -50,7 +50,7 @@ def _self_pair_slots(ta: int, tb: int) -> int:
         return 1
     # every remaining convex combination (mesh-vs-anything, cylinder /
     # ellipsoid pairs) goes through the swept-cloud SAT path — the
-    # TPU-native analogue of the reference's FCL GJK general-pair engine
+    # batched analogue of the reference's FCL GJK general-pair engine
     # (`dart/collision/**` †; collision/support.py)
     from dartenv_tpu.collision.support import SLOTS
 

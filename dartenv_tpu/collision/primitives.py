@@ -1,6 +1,6 @@
 """Closed-form primitive pair tests (branch-free, jit/vmap-safe).
 
-TPU-native counterparts of the reference's narrowphase
+JAX counterparts of the reference's narrowphase
 (`dart/collision/dart/DARTCollide.cpp` † — ODE-derived box-box SAT with
 face clipping — and FCL's convex pairs; SURVEY.md §2.4 "collision").
 Everything here is fixed-shape: each function returns a static number of

@@ -3,7 +3,7 @@ set SAT (VERDICT.md round 2 order #6).
 
 The reference handles arbitrary convex pairs through FCL's GJK/libccd
 (`dart/collision/**` †, SURVEY.md §2.4 "collision").  GJK's data-dependent
-simplex loop is hostile to fixed-shape SPMD, so the TPU-native design is a
+simplex loop is hostile to fixed-shape SPMD, so the batched design is a
 *directional* separating-axis test over a static candidate set:
 
   * Every convex geom is a **sphere-swept point cloud** `(points, radius)`:
@@ -25,8 +25,8 @@ simplex loop is hostile to fixed-shape SPMD, so the TPU-native design is a
     edge-edge contacts between box-like hulls (edges along frame axes)
     resolve along the exact MTV direction.
 
-Everything is dot products, masked reductions, and one `top_k`: pure VPU
-work under vmap, no data-dependent control flow.  Accuracy note (round
+Everything is dot products, masked reductions, and one `top_k`: pure
+elementwise work under vmap, no data-dependent control flow.  Accuracy note (round
 5): the candidate set now contains every polytope-SAT axis of the two
 clouds — each geom's static face normals and the cross products of the
 two geoms' edge directions (`feature_dirs`) — so the returned MTV is

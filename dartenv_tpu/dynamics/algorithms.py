@@ -1,11 +1,11 @@
 """Articulated-body dynamics algorithms: FK, ABA, CRBA, RNEA.
 
-TPU-native replacement of the reference's recursive Lie-group dynamics
+JAX replacement of the reference's recursive Lie-group dynamics
 (`dart/dynamics/Skeleton.cpp` †: computeForwardDynamics / updateMassMatrix /
 computeInverseDynamics; `BodyNode.cpp` †: updateArtInertia / updateBiasForce
 — SURVEY.md §2.4, §3.2).  All functions here are single-environment and pure;
 batching comes from `jax.vmap` outside, which turns every tiny per-body op
-into one elementwise op over the env axis (the idiomatic TPU layout — the
+into one elementwise op over the env axis (the idiomatic batched layout — the
 env batch is the vector axis; the body recursion unrolls at trace time since
 topology is static Python data).
 
@@ -321,7 +321,7 @@ def forward_dynamics_crb(model: SkelModel, kin: Kin, q, dq, tau, dt,
     Same implicit spring/damper scheme as `aba`; returns (ddq, M) so the
     constraint solver can reuse M.  This is the production path: M is needed
     for the contact Delassus operator anyway, and dense (n<=32) ops batch
-    perfectly under vmap on TPU.
+    perfectly under vmap.
     """
     M = crba(model, kin)
     C = rnea_bias(model, kin, dq, f_ext_world)

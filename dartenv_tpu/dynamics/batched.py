@@ -1,9 +1,9 @@
 """Production dynamics core: body-batched, compile-size O(1) in topology.
 
-This is the TPU-first formulation of the smooth dynamics (the readable
+This is the batch-first formulation of the smooth dynamics (the readable
 per-body reference implementation lives in `algorithms.py` and the two are
 cross-checked in tests).  Design rules, learned the hard way (the per-body
-unrolled graphs sent the TPU fusion pass into the weeds):
+unrolled graphs sent XLA's fusion pass into the weeds):
 
 * joints are processed in static *type groups*, each group vectorized over
   its joints (one rodrigues/exp per group, not per joint);
@@ -14,7 +14,7 @@ unrolled graphs sent the TPU fusion pass into the weeds):
   static dof->body map (vJ, cJ per body);
 * the mass matrix and bias forces are assembled as dense einsums over
   world-frame body Jacobians:  M = sum_b J_b I_b^w J_b^T,
-  C = sum_b J_b f_b^w — a handful of large batched matmuls (MXU work)
+  C = sum_b J_b f_b^w — a handful of large batched contractions
   instead of hundreds of 3x3/6x6 chains.
 
 Reference parity: same quantities as `Skeleton::computeForwardDynamics` /
@@ -341,16 +341,16 @@ def world_jacobians(model: SkelModel, kin: BKin):
 def mass_matrix(model: SkelModel, kin: BKin):
     """M = sum_b J_b I_b^w J_b^T (world-frame assembly).
 
-    Assembled at highest matmul precision: on TPU, default-f32 matmuls run
-    bf16 passes and the resulting M can lose positive-definiteness (NaN
+    Assembled at highest matmul precision: default-f32 matmuls may run
+    in a reduced-precision matrix unit (TF32 on the GPU) and the resulting M can lose positive-definiteness (NaN
     Cholesky downstream).
     """
     I_b = _body_inertias(model)                     # (nb, 6, 6) body frame
     # push to world origin: I_w = X^T I X with X = motion world->body,
     # X built from E = R_w^T, r = p_w
     X = sp.xmotion_mat(jnp.swapaxes(kin.R_w, -1, -2), kin.p_w)
-    # mul+reduce contractions: full-f32 VPU math (a default-precision MXU
-    # einsum runs bf16 passes on TPU and the resulting M can lose
+    # mul+reduce contractions: full-f32 math (a default-precision
+    # einsum may run in TF32 on the GPU and the resulting M can lose
     # positive-definiteness -> NaN Cholesky downstream)
     IX = jnp.sum(I_b[..., :, :, None] * X[..., None, :, :], axis=-2)
     I_w = jnp.sum(X[..., :, :, None] * IX[..., :, None, :], axis=-3)

@@ -1,6 +1,6 @@
 """Joint models: transforms, motion subspaces, position integration.
 
-TPU-native counterpart of the reference's joint hierarchy
+JAX counterpart of the reference's joint hierarchy
 (`dart/dynamics/GenericJoint.hpp` / `*Joint.cpp` † — SURVEY.md §2.4 row
 "Joint hierarchy").  Each joint type is a pure function
     (axes, q) -> (R, p, S)

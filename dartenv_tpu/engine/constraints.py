@@ -1,7 +1,7 @@
 """Constraint assembly: contacts + joint limits + joint Coulomb friction
 -> one boxed LCP per env — fully vectorized over constraint rows.
 
-TPU-native replacement of the reference's constraint layer
+JAX replacement of the reference's constraint layer
 (`dart/constraint/ConstraintSolver.cpp` †, `ContactConstraint.cpp` †,
 `JointLimitConstraint.cpp` †, `JointCoulombFrictionConstraint` † —
 SURVEY.md §2.4).  Differences from the reference's architecture, by design:
@@ -263,8 +263,8 @@ def assemble_lcp(model: SkelModel, layout: RowLayout, phi,
                 + jnp.arange(3, dtype=slot_idx.dtype)[None, :]).reshape(-1)
         tail = jnp.arange(3 * ns, m, dtype=slot_idx.dtype)
         row_sel = jnp.concatenate([crow, tail])
-        # selection as a one-hot matrix: TPU hates dynamic gathers on the
-        # hot path; S @ x lowers to an MXU matmul instead
+        # selection as a one-hot matrix: S @ x is a dense contraction, no
+        # dynamic gather on the hot path
         m_c = row_sel.shape[0]
         sel = (row_sel[:, None]
                == jnp.arange(m, dtype=row_sel.dtype)[None, :]).astype(dtype)

@@ -1,4 +1,4 @@
-"""The simulation step: TPU-native `World::step`.
+"""The simulation step: a JAX `World::step`.
 
 Replicates the reference's canonical op order exactly
 (`dart/simulation/World.cpp:~100-200` †, SURVEY.md §3.2):
@@ -18,7 +18,7 @@ Batching: `jax.vmap(step)`; sharding: shard_map over the env mesh
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable
 
 import jax
 import jax.numpy as jnp
@@ -81,26 +81,18 @@ def make_sim_step(model: SkelModel, return_impulses: bool = False) -> Callable:
     layout = build_layout(model)
     dt = model.dt
     # fused Pallas dynamics phase (dynamics/pallas_dynamics.py): a vmapped
-    # f32 batch on TPU runs the whole phase in one lane-major kernel; the
+    # f32 batch on the GPU runs the whole phase in one kernel; the
     # single-env / CPU / f64 sides of the custom_vmap run the exact
     # batched.py path below.  None when the model has unsupported joints.
     from dartenv_tpu.dynamics.pallas_dynamics import make_dynamics_phase
     dyn_phase = make_dynamics_phase(model, dt)
-    # fused FULL-substep kernel (engine/pallas_substep.py): dynamics +
-    # collision + assembly + A-build + PGS in one kernel, escalation and
-    # integration outside; supersedes the phase-wise path on TPU f32
-    # batches for halfspace-contact models.  None when unsupported.
-    from dartenv_tpu.engine.pallas_substep import make_substep_phase
-    sub_phase = make_substep_phase(model)
 
     def step(state: SimState, tau, f_ext_world=None, servo_target=None):
         # every contraction in the physics trace runs at HIGHEST matmul
-        # precision: a default-precision dot_general runs single-pass
-        # bf16 on the TPU MXU, which round 4's forensics measured at
-        # 1e-2-class per-substep error vs CPU-f64 on this very path
-        # (docs/BENCH.md round-4b finding #1; VERDICT r4 order #1).  The
-        # Pallas kernels are unaffected (pure VPU mul/add); for the tiny
-        # matrices here HIGHEST vs mul+reduce is a measured perf wash.
+        # precision: a default-precision f32 dot_general may run in TF32
+        # on the GPU's tensor cores (about three decimal digits), which
+        # is 1e-2-class per-substep error vs CPU-f64 on this path.  The
+        # Pallas kernels are unaffected (elementwise mul/add only).
         with jax.default_matmul_precision("highest"):
             return _step(state, tau, f_ext_world, servo_target)
 
@@ -108,17 +100,6 @@ def make_sim_step(model: SkelModel, return_impulses: bool = False) -> Callable:
         # named scopes give per-phase attribution in jax.profiler/XProf
         # traces (SURVEY.md §5.1 — the reference has no profiling hooks)
         q, dq = state.q, state.dq
-        if sub_phase is not None and f_ext_world is None \
-                and servo_target is None:
-            with jax.named_scope("substep_fused"):
-                lam_prev = state.lam if state.lam is not None else \
-                    jnp.zeros((layout.m,), dtype=q.dtype)
-                q_new, dq_plus, lam, contacts = sub_phase(
-                    q, dq, lam_prev, tau)
-            out = (contacts, lam) if return_impulses else contacts
-            lam_carry = lam if state.lam is not None else None
-            return SimState(q=q_new, dq=dq_plus, time=state.time + dt,
-                            lam=lam_carry), out
         with jax.named_scope("dynamics"):
             if dyn_phase is not None and f_ext_world is None:
                 dq_star, M, phi, R_w, p_w = dyn_phase(q, dq, tau)
@@ -141,48 +122,6 @@ def make_sim_step(model: SkelModel, return_impulses: bool = False) -> Callable:
         lam_carry = lam if state.lam is not None else None
         return SimState(q=q_new, dq=dq_plus, time=state.time + dt,
                         lam=lam_carry), out
-
-    return step
-
-
-def make_dr_sim_step(model: SkelModel, dr_fields,
-                     return_impulses: bool = False) -> Optional[Callable]:
-    """Fused-kernel sim step for a DOMAIN-RANDOMIZED batch
-    (VERDICT r4 order #2: DR must not forfeit the kernels).
-
-    `model` is the CONCRETE base model (defines every static structure);
-    `dr_fields` names the leaves that carry per-env values.  Returns
-    step(state, tau, dr_vals) with dr_vals a tuple of per-env leaves in
-    dr_fields order — vmap it over (state, tau, dr_vals) and the batch
-    lands in the fused substep kernel with the DR leaves as runtime
-    block inputs (engine/pallas_substep.DR_FIELDS_SUB).  Returns None
-    when the kernel cannot serve this model/field set (caller keeps the
-    vmapped XLA path, e.g. parallel/domain_rand.make_randomized_sim_step
-    falls back automatically)."""
-    from dartenv_tpu.engine.pallas_substep import make_substep_phase
-
-    dr_fields = tuple(dr_fields)
-    if any(isinstance(leaf, jax.core.Tracer)
-           for leaf in jax.tree_util.tree_leaves(model)):
-        return None          # base model must be concrete
-    sub_phase = make_substep_phase(model, dr_fields=dr_fields)
-    if sub_phase is None:
-        return None
-    layout = build_layout(model)
-    dt = model.dt
-
-    def step(state: SimState, tau, dr_vals):
-        with jax.default_matmul_precision("highest"):
-            q, dq = state.q, state.dq
-            lam_prev = state.lam if state.lam is not None else \
-                jnp.zeros((layout.m,), dtype=q.dtype)
-            with jax.named_scope("substep_fused_dr"):
-                q_new, dq_plus, lam, contacts = sub_phase(
-                    q, dq, lam_prev, tau, *dr_vals)
-            out = (contacts, lam) if return_impulses else contacts
-            lam_carry = lam if state.lam is not None else None
-            return SimState(q=q_new, dq=dq_plus, time=state.time + dt,
-                            lam=lam_carry), out
 
     return step
 

@@ -90,14 +90,9 @@ def make_humanwalker_task(dtype=jnp.float32, lcp_solver=None,
     # at 3.9e-3 — the cold tier's real job was fixing wrong PGS
     # partitions, which a deeper warm pivot budget also does), and the
     # refinement reaches past the f32 ceiling the cold solve plateaued
-    # at (captured offenders 6e-4 -> 6e-7).  escalate_frac=1/8 FILLS the
-    # 128-lane BPP tile at the committed B=1024 (K = 1024/8 = 128): the
-    # escalation's cost is flat in K up to one tile, so 4x the coverage
-    # of the old 1/32 is free and cuts the B=1024 steady-state batch
-    # residual envelope 7-20x (p95 0.124 -> 0.018, p99 0.73 -> 0.037 —
-    # scripts/residual_envelope.py).  Throughput measured on the live
-    # chip (docs/SOLVERS.md round 5): 80.8k (r4 two-tier) -> 128.8k
-    # env-steps/s/chip at this config.
+    # at (captured offenders 6e-4 -> 6e-7).  escalate_frac=1/8 gives
+    # K = 128 at B=1024; its cost on the GPU is measured in PERF.md and
+    # the fraction is not yet re-derived from it.
     kw = dict(contact_cap=6, pgs_iters=15, escalate_frac=1.0 / 8,
               escalate_tol=1e-5, escalate_iters=16, escalate_ref=2)
     kw.update(solver_kw)           # caller overrides beat the task defaults

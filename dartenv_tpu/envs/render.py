@@ -2,8 +2,8 @@
 
 The reference renders through GLUT/OpenGL with a trackball camera whose
 translation tracks `skeletons[track_skeleton_id].com()` (`static_window.py`
-†, `pydart2/gui/trackball.py` † — SURVEY.md §2.2/§3.4).  A TPU host has no
-GL stack, so this is a pure-numpy rasterizer with the same CAMERA MODEL:
+†, `pydart2/gui/trackball.py` † — SURVEY.md §2.2/§3.4).  An accelerator host has
+no GL stack, so this is a pure-numpy rasterizer with the same CAMERA MODEL:
 pinhole perspective, azimuth/elevation orbit about a tracked look-at point
 (the robot COM), checkerboard ground plane, painter's-order primitives.
 3D envs (walker3d, humanwalker, dog) get a usable tracked view instead of

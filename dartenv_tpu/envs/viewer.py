@@ -3,8 +3,8 @@ renderer.
 
 The reference's human mode opens a GLUT window with a trackball camera
 (`static_window.py` †: `StaticGLUTWindow.runSingleStep()`; pydart2
-`gui/glut/window.py` + `gui/trackball.py` † — SURVEY.md §2.2/§2.3).  A TPU
-host has no GL stack and usually no display at all, so this viewer is built
+`gui/glut/window.py` + `gui/trackball.py` † — SURVEY.md §2.2/§2.3).  An
+accelerator host has no GL stack and usually no display at all, so this viewer is built
 on the stdlib's Tk binding showing frames from the same pure-numpy
 rasterizer that serves `rgb_array` (`envs/render.py`) — zero new
 dependencies, and `render('human')` degrades to a recorded no-op on a

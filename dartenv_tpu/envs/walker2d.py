@@ -67,13 +67,10 @@ def make_walker2d_task(dtype=jnp.float32, lcp_solver=None,
     # LCP active-set cap (see SolverConfig.contact_cap): at most
     # 6 simultaneously active contact slots for this morphology
     # pgs_iters/escalate: warm-started PGS with exact-solver escalation of
-    # the worst 1/32 of envs per substep (docs/SOLVERS.md residual study;
-    # 1/32 pads to the same 128-lane BPP tile as 1/64 — free coverage)
-    # escalation budget (r4): 4 damped + 2 refine pivots — the BPP
-    # tile's serial chain rivals the whole fused substep, and the CPU
-    # study shows this budget keeps the envelope (max 2.9e-5 vs 8.9e-6
-    # at the legacy 8+6; bound 1e-4).  Measured: 8.5M -> 11.2M steady
-    # env-steps/s/chip (docs/SOLVERS.md, docs/BENCH.md)
+    # the worst 1/32 of envs per substep (docs/SOLVERS.md residual study)
+    # escalation budget: 4 damped + 2 refine pivots — the re-solve is a
+    # serial pivot chain, and the CPU study shows this budget keeps the
+    # envelope (max 2.9e-5 vs 8.9e-6 at the legacy 8+6; bound 1e-4)
     kw = dict(contact_cap=6, pgs_iters=8, escalate_frac=1.0 / 32,
               escalate_tol=1e-5, escalate_iters=4, escalate_refine=2)
     kw.update(solver_kw)           # caller overrides beat the task defaults

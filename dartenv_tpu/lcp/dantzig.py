@@ -15,9 +15,9 @@ the same boxed LCP with ODE `findex` friction coupling:
        w -> F
     3. friction bounds refresh from the current normal impulses
 
-Each iteration is one batched masked Cholesky solve — dense MXU work with
-a static trip count, which is exactly what a TPU wants (compare: PGS does
-m_rows * iters sequential row updates).  Like `dSolveLCP`, the result is an
+Each iteration is one batched masked Cholesky solve — dense work with a
+static trip count (compare: PGS does m_rows * iters sequential row
+updates).  Like `dSolveLCP`, the result is an
 *exact* complementarity point when the set sequence converges (typical in
 <= 8 iterations for these contact problems); a PGS polish pass cleans up
 rare non-converged envs.
@@ -71,10 +71,9 @@ def dantzig_solve(A, b, lo, hi, findex, mu, active, iters: int = 24,
         """findex-coupled boxes from current normal impulses.
 
         |x[fidx]|, not x[fidx]: a transiently negative normal impulse must
-        not invert the friction box (lo > hi) — and the Pallas BPP kernel
-        (lcp/pallas_bpp.py) uses the same abs, so the two paths iterate
-        the identical set map and the golden cross-checks stay meaningful
-        (ADVICE.md r3)."""
+        not invert the friction box (lo > hi); native/lcp_dantzig.cpp
+        uses the same abs, so the golden cross-checks iterate the
+        identical set map."""
         fb = mu * jnp.abs(x[fidx]) * has_f + big * (1.0 - has_f)
         lo_i = jnp.maximum(lo, -fb)
         hi_i = jnp.minimum(hi, fb)
@@ -173,8 +172,8 @@ def _two_prod(a, b):
     """Dekker two-prod: p + e == a * b exactly (p = fl(a*b)).
 
     No FMA primitive is exposed through XLA, so the error term comes
-    from Dekker mantissa splitting; all six ops are IEEE-rounded VPU
-    elementwise ops on TPU, which the identity requires.  The split
+    from Dekker mantissa splitting; all six ops are IEEE-rounded
+    elementwise ops, which the identity requires.  The split
     constant is mantissa-width-dependent (the CPU f64 validation mode
     routes the same production tier)."""
     split = _SPLIT_F64 if a.dtype == jnp.float64 else _SPLIT_F32
@@ -302,10 +301,7 @@ def refine_mixed(A, b, lo, hi, findex, mu, active, x, passes: int = 2):
     reaches 1e-14 — docs/SOLVERS.md "Residual tails, adjudicated") is
     set by the free-set solve's rounding.  Classic mixed-precision
     refinement lifts it: compute r = -(b + A x) on the free rows in f64
-    — pure elementwise mul+reduce, which this TPU backend supports
-    cheaply (unlike f64 factorizations: batched f64 cholesky measured
-    ~1000x f32, batched f64 LU miscompiles — docs/SOLVERS.md round 5)
-    — then solve the correction on the SAME f32 masked operator and
+    — pure elementwise mul+reduce — then solve the correction on the SAME f32 masked operator and
     re-project.  Friction boxes are refreshed from the refined normals
     each pass.  Requires jax_enable_x64; leading batch axes broadcast.
     """
@@ -379,47 +375,17 @@ def refine_mixed(A, b, lo, hi, findex, mu, active, x, passes: int = 2):
 
 def make_exact_solver(findex, iters: int = 24, polish_iters: int = 10,
                       refine_iters=None):
-    """Exact boxed-LCP solver for ONE env that redirects a vmapped batch
-    to the Pallas block-principal-pivoting kernel (lcp/pallas_bpp.py) on
-    TPU — the same batch-dispatch pattern as lcp.pgs.make_pgs_solver.
+    """Exact boxed-LCP solver for ONE env (block principal pivoting).
 
     Used by the production `solver="dantzig"` mode and by the hybrid
-    escalation (lcp/hybrid.py), whose K-env re-solve batch becomes a
-    single fused kernel tile instead of ~40 serial masked XLA solves.
+    escalation (lcp/hybrid.py), which vmaps it over its K-env re-solve
+    batch: a vmapped batch runs the XLA formulation on every backend.
     """
-    import numpy as _np
+    findex = np.asarray(findex)
 
-    from dartenv_tpu.lcp.pgs import _on_tpu
-
-    findex = _np.asarray(findex)
-
-    @jax.custom_batching.custom_vmap
     def solve(A, b, lo, hi, mu, active, lam0):
         return dantzig_solve(A, b, lo, hi, findex, mu, active,
                              iters=iters, polish_iters=polish_iters,
                              lam0=lam0, refine_iters=refine_iters)
-
-    @solve.def_vmap
-    def _batched(axis_size, in_batched, *args):
-        args = [
-            a if bat else jnp.broadcast_to(a, (axis_size,) + a.shape)
-            for a, bat in zip(args, in_batched)
-        ]
-        A, b, lo, hi, mu, active, lam0 = args
-        if _on_tpu() and A.dtype == jnp.float32:
-            from dartenv_tpu.lcp.pallas_bpp import bpp_solve_pallas
-
-            out = bpp_solve_pallas(A, b, lo, hi, findex, mu, active,
-                                   iters=iters, polish_iters=polish_iters,
-                                   lam0=lam0, refine_iters=refine_iters)
-        else:
-            out = jax.vmap(
-                lambda Ai, bi, loi, hii, mui, acti, l0i: dantzig_solve(
-                    Ai, bi, loi, hii, findex, mui, acti, iters=iters,
-                    polish_iters=polish_iters, lam0=l0i,
-                    refine_iters=refine_iters,
-                )
-            )(A, b, lo, hi, mu, active, lam0)
-        return out, True
 
     return solve

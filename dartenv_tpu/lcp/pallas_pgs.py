@@ -1,16 +1,18 @@
-"""Pallas TPU kernel: batched boxed-LCP projected Gauss-Seidel.
+"""Pallas kernel (GPU, through Triton): batched boxed-LCP projected
+Gauss-Seidel.
 
-The LCP solve is the step's serial bottleneck (SURVEY.md §3.2 hot loop /
-§7 "batched dense boxed-LCP ... as a Pallas TPU kernel").  The XLA
-formulation (lcp/pgs.py) pays per-op dispatch + HBM traffic for every one
-of m_rows x iters sequential row updates; this kernel keeps the whole
-Delassus block for a tile of envs resident in VMEM and runs the complete
-sweep loop on-core.
+The XLA formulation (lcp/pgs.py) runs the sweep as fori(iters) x
+fori(m rows) while-loops, each trip at least one kernel launch on the
+GPU.  This kernel runs the whole warm-started sweep loop for a tile of
+TB envs in one launch, one env per thread.
 
-Layout: env batch LAST (lanes).  A tile is (m, m, TB) with TB = 128 envs;
-row updates are (m, TB) elementwise multiplies + a sublane reduction —
-pure VPU work at full lane occupancy.  Row order is static => bitwise
-deterministic and identical to the XLA path's sweep order.
+Layout: env-minor, like the fused kernels (dynamics/pallas_dynamics.py
+`env_tile_call`).  The m rows are padded to mp, the next power of two,
+because every Triton load has a power-of-two size: a row of A is one
+(mp, TB) load, and lam is carried as one (mp, TB) value.  Pad rows have
+active = 0, a unit diagonal and zero bounds, and the sweep never visits
+them, so their lam stays pinned at 0.  Row order is static, the same
+0..m-1 order as the XLA sweep.
 """
 from __future__ import annotations
 
@@ -19,67 +21,76 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-from dartenv_tpu.dynamics.pallas_dynamics import _x64_safe_kernel
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-TB = 128  # envs per tile (lane width)
+from dartenv_tpu.dynamics.pallas_dynamics import TB, env_tile_call
+
+
+def padded_rows(m: int) -> int:
+    """The power-of-two row count the kernel works in."""
+    return 1 << max(0, int(m) - 1).bit_length()
 
 
 def _pgs_kernel(A_ref, b_ref, lo_ref, hi_ref, mu_ref, act_ref, invd_ref,
-                lam0_ref, lam_ref, *res_ref, findex, iters: int):
-    m = b_ref.shape[0]
+                lam0_ref, lam_ref, *res_ref, m: int, findex, iters: int):
+    mp = lam0_ref.shape[0]
     fidx = np.maximum(findex, 0)
     has_f = findex >= 0
+    rows = jax.lax.broadcasted_iota(jnp.int32, (mp, TB), 0)
 
-    lam_ref[...] = lam0_ref[...]  # warm start (zeros = cold)
+    def row(lam, i):
+        return jnp.sum(jnp.where(rows == i, lam, 0.0), axis=0)
 
-    def sweep(_, carry):
-        # lam lives in the output VMEM ref; rows are updated in place
+    def A_row(i):
+        return A_ref[pl.ds(i * mp, mp)]
+
+    b = [b_ref[i] for i in range(m)]
+    lo = [lo_ref[i] for i in range(m)]
+    hi = [hi_ref[i] for i in range(m)]
+    mu = [mu_ref[i] for i in range(m)]
+    act = [act_ref[i] for i in range(m)]
+    invd = [invd_ref[i] for i in range(m)]
+
+    def sweep(_, lam):
         for i in range(m):
-            w = jnp.sum(A_ref[i] * lam_ref[...], axis=0) + b_ref[i]
-            new = lam_ref[i] - w * invd_ref[i]
+            w = jnp.sum(A_row(i) * lam, axis=0) + b[i]
+            new = row(lam, i) - w * invd[i]
             if has_f[i]:
-                bound = mu_ref[i] * lam_ref[fidx[i]]
-                lo_i = jnp.maximum(lo_ref[i], -bound)
-                hi_i = jnp.minimum(hi_ref[i], bound)
+                bound = mu[i] * row(lam, int(fidx[i]))
+                lo_i = jnp.maximum(lo[i], -bound)
+                hi_i = jnp.minimum(hi[i], bound)
             else:
-                lo_i = lo_ref[i]
-                hi_i = hi_ref[i]
-            lam_ref[i] = jnp.clip(new, lo_i, hi_i) * act_ref[i]
-        return carry
+                lo_i, hi_i = lo[i], hi[i]
+            new = jnp.clip(new, lo_i, hi_i) * act[i]
+            lam = jnp.where(rows == i, new[None, :], lam)
+        return lam
 
-    jax.lax.fori_loop(0, iters, sweep, 0)
+    lam = jax.lax.fori_loop(0, iters, sweep, lam0_ref[...])
+    lam_ref[...] = lam
 
     if res_ref:
         # fused normalized complementarity residual (same metric as
-        # lcp.hybrid.comp_residual) — A is already VMEM-resident here, so
-        # this avoids the hybrid's extra HBM pass over every env's
-        # Delassus block (the B-proportional escalation cost measured in
-        # docs/BENCH.md's B-sweep diagnosis)
+        # lcp.hybrid.comp_residual) while A's rows are still in cache
         (res_out,) = res_ref
-        lam = lam_ref[...]
         scale = jnp.maximum(1.0, jnp.max(jnp.abs(lam), axis=0))  # (TB,)
         eps = 1e-6 * scale + 1e-9
         res = jnp.zeros_like(scale)
         for i in range(m):
-            w = jnp.sum(A_ref[i] * lam, axis=0) + b_ref[i]
+            w = jnp.sum(A_row(i) * lam, axis=0) + b[i]
+            li = row(lam, i)
             if has_f[i]:
-                bound = mu_ref[i] * jnp.abs(lam[fidx[i]])
-                lo_e = jnp.maximum(lo_ref[i], -bound)
-                hi_e = jnp.minimum(hi_ref[i], bound)
+                bound = mu[i] * jnp.abs(row(lam, int(fidx[i])))
+                lo_e = jnp.maximum(lo[i], -bound)
+                hi_e = jnp.minimum(hi[i], bound)
             else:
-                lo_e = lo_ref[i]
-                hi_e = hi_ref[i]
-            at_lo = lam[i] <= lo_e + eps
-            at_hi = lam[i] >= hi_e - eps
+                lo_e, hi_e = lo[i], hi[i]
+            at_lo = li <= lo_e + eps
+            at_hi = li >= hi_e - eps
             r_i = jnp.where(jnp.logical_and(at_lo, at_hi), 0.0,
                             jnp.where(at_lo, -w,
                                       jnp.where(at_hi, w, jnp.abs(w))))
-            r_i = jnp.maximum(r_i, jnp.maximum(lo_e - lam[i],
-                                               lam[i] - hi_e))
-            res = jnp.maximum(res, jnp.where(act_ref[i] > 0.5, r_i, 0.0))
+            r_i = jnp.maximum(r_i, jnp.maximum(lo_e - li, li - hi_e))
+            res = jnp.maximum(res, jnp.where(act[i] > 0.5, r_i, 0.0))
         res_out[0] = res / scale
 
 
@@ -88,65 +99,33 @@ def pgs_solve_pallas(A, b, lo, hi, findex, mu, active, iters: int = 30,
                      interpret: bool = False,
                      return_residual: bool = False):
     """Batched solve.  A: (B, m, m); b/lo/hi/mu/active: (B, m); findex is a
-    static numpy (m,) array.  Returns lam (B, m).
-
-    B is padded up to a multiple of TB; the env axis is transposed to the
-    lane dimension around the kernel call.
-    """
+    static numpy (m,) array.  Returns lam (B, m), and with
+    return_residual also the (B,) normalized residual of lam."""
     B, m = b.shape
     dtype = A.dtype
     if m == 0:
         return jnp.zeros((B, 0), dtype=dtype)
     if lam0 is None:
         lam0 = jnp.zeros_like(b)
-    Bp = ((B + TB - 1) // TB) * TB
-    pad = Bp - B
-
     diag = jnp.diagonal(A, axis1=-2, axis2=-1)
     inv_diag = jnp.where(diag > 1e-12, 1.0 / jnp.maximum(diag, 1e-12),
                          jnp.zeros((), dtype))
     inv_diag = inv_diag * jnp.asarray(omega, dtype=dtype)  # SOR step scale
 
-    def to_lanes(x):
-        if pad:
-            x = jnp.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1))
-        return jnp.moveaxis(x, 0, -1)  # (..., Bp)
-
-    A_t = to_lanes(A)         # (m, m, Bp)
-    args = [to_lanes(v) for v in (b, lo, hi, mu, active, inv_diag, lam0)]
-
-    grid = (Bp // TB,)
-    block3 = pl.BlockSpec((m, m, TB), lambda i: (np.int32(0), np.int32(0), i),
-                          memory_space=pltpu.VMEM)
-    block2 = pl.BlockSpec((m, TB), lambda i: (np.int32(0), i),
-                          memory_space=pltpu.VMEM)
-
-    kernel = functools.partial(
-        _pgs_kernel, findex=np.asarray(findex), iters=iters
-    )
-    kernel = _x64_safe_kernel(kernel, dtype)
+    mp = padded_rows(m)
+    pr = mp - m
+    A_p = jnp.pad(A, ((0, 0), (0, pr), (0, pr)))
+    A_p = A_p + jnp.diag(jnp.concatenate(
+        [jnp.zeros(m, dtype), jnp.ones(pr, dtype)]))
+    vecs = [jnp.pad(v, ((0, 0), (0, pr)))
+            for v in (b, lo, hi, mu, active, inv_diag, lam0)]
+    kernel = functools.partial(_pgs_kernel, m=m,
+                               findex=np.asarray(findex), iters=iters)
+    outs = env_tile_call(
+        kernel, [A_p.reshape(B, mp * mp)] + vecs,
+        [mp, 1] if return_residual else [mp], dtype,
+        name="dartenv_pgs", interpret=interpret)
+    lam = outs[0][:, :m]
     if return_residual:
-        block_res = pl.BlockSpec((1, TB), lambda i: (np.int32(0), i),
-                                 memory_space=pltpu.VMEM)
-        lam_t, res_t = pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=[block3] + [block2] * 7,
-            out_specs=(block2, block_res),
-            out_shape=(jax.ShapeDtypeStruct((m, Bp), dtype),
-                       jax.ShapeDtypeStruct((1, Bp), dtype)),
-            interpret=interpret,
-        )(A_t, *args)
-        lam = jnp.moveaxis(lam_t, -1, 0)
-        res = res_t[0]
-        return (lam[:B], res[:B]) if pad else (lam, res)
-    lam_t = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[block3] + [block2] * 7,
-        out_specs=block2,
-        out_shape=jax.ShapeDtypeStruct((m, Bp), dtype),
-        interpret=interpret,
-    )(A_t, *args)
-    lam = jnp.moveaxis(lam_t, -1, 0)
-    return lam[:B] if pad else lam
+        return lam, outs[1][:, 0]
+    return lam

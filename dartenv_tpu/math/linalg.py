@@ -1,10 +1,10 @@
 """Small dense linear algebra, unrolled for static tiny sizes.
 
 The reference leans on Eigen (SURVEY.md §2.4 L0) for n<=30 dense factorizations
-inside the constraint solver.  Under vmap on TPU, generic LAPACK-style
+inside the constraint solver.  Under vmap, generic LAPACK-style
 routines with pivoting are hostile to batching, so we unroll Cholesky at
 trace time over the static size: every scalar op becomes one fused
-elementwise op over the env batch axis (VPU-friendly), with no control flow.
+elementwise op over the env batch axis with no control flow.
 """
 from __future__ import annotations
 
@@ -93,7 +93,7 @@ def _tri_inv_unrolled(L):
     """Inverse of lower-triangular L (..., n, n), n <= _UNROLL_MAX.
 
     Unrolled forward substitution on identity columns: every entry is one
-    fused elementwise op over the batch axes — the same VPU-friendly shape
+    fused elementwise op over the batch axes — the same batch-friendly shape
     discipline as `chol`.
     """
     n = L.shape[-1]
@@ -116,9 +116,10 @@ def _tri_inv_unrolled(L):
 
 
 def _pmm(a, b):
-    """Precision-safe batched matmul as mul+reduce: on TPU, default-f32
-    MXU matmuls run bf16 passes — fatal inside an explicit inverse (the
-    error squares).  mul+reduce stays in full-f32 VPU math and is
+    """Precision-safe batched matmul as mul+reduce: default-f32 matmuls
+    may run in a reduced-precision matrix unit (TF32 on the GPU) — fatal
+    inside an explicit inverse (the error squares).  mul+reduce stays in
+    full-f32 math and is
     layout-friendly for these tiny (n <= ~50) matrices."""
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
 
@@ -131,9 +132,8 @@ def _inv_psd_rec(A):
     # SPD block inversion via the Schur complement: all ops are unrolled
     # tiny factorizations or batched mul+reduce contractions —
     # compile-size O(n/k) graphs and no XLA cholesky/triangular-solve
-    # custom calls, whose batched lowering is ~100x off speed-of-light for
-    # batch-minor layouts on TPU (measured: (1024, 29, 29) f32 cholesky
-    # 4.3 ms vs 42 us; see docs/BENCH.md round 2 notes)
+    # custom calls (whether cuSOLVER's batched factorization beats this
+    # form on the GPU is not measured yet; ROADMAP.md)
     k = (n + 1) // 2
     A11 = A[..., :k, :k]
     A12 = A[..., :k, k:]
@@ -170,9 +170,8 @@ def solve_psd(A, b, eps: float = 0.0):
     """Solve A x = b for SPD A.
 
     Small n: unrolled Cholesky + substitution.  n > _UNROLL_MAX: explicit
-    `inv_psd` + matmul — on TPU the batched XLA triangular-solve path is
-    two orders of magnitude slower than the Schur/unrolled inverse for
-    these sizes (see inv_psd), and the LCP operators here carry CFM
+    `inv_psd` + matmul, avoiding the batched XLA triangular-solve custom
+    calls (see inv_psd), and the LCP operators here carry CFM
     regularization, so the inverse's extra conditioning cost is within the
     solver tolerance.
     """

@@ -1,11 +1,11 @@
-"""Spatial (screw) algebra for TPU-native articulated dynamics.
+"""Spatial (screw) algebra for batched articulated dynamics.
 
-TPU-first replacement for the reference's Eigen-based spatial math
+Batch-first replacement for the reference's Eigen-based spatial math
 (`dart/math/Geometry.cpp` †: `expMap`, `AdT`, `dAdT` — see SURVEY.md §2.4).
 Everything here is pure jax.numpy on small fixed shapes, written to be
 `vmap`-ped over an environment batch axis: per-env ops are tiny (3-vectors,
 quaternions, 6-vectors, 6x6 blocks) and the batch axis supplies the
-vector-unit parallelism on TPU.
+data parallelism.
 
 Conventions (Featherstone / RBDA, matching DART's Lie-group form):
   * spatial motion vector v = [omega; v_lin]  (angular on top)

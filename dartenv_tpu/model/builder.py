@@ -1,6 +1,6 @@
 """Programmatic model construction -> SkelModel.
 
-Host-side (offline) model assembly: the TPU-native analogue of the
+Host-side (offline) model assembly: the JAX analogue of the
 reference's parser output path (`dart/utils/SkelParser.cpp` † builds the
 World object graph; here we build pure arrays once, outside jit — SURVEY.md
 §2.4 "utils: parsers").  Used directly by tests/envs and by the .skel XML

@@ -3,7 +3,7 @@
 
 The reference steps EVERY skeleton in `world.skeletons` each substep
 (`dart/simulation/World::step` iterates all skeletons †, SURVEY.md §3.2);
-pydart2 exposes them as `world.skeletons[i]`.  The TPU-native equivalent
+pydart2 exposes them as `world.skeletons[i]`.  The batched equivalent
 is not N engine instances but ONE composed model: skeleton forests are
 already first-class (SkelModel roots have parent = -1 and every kinematic
 scan gathers per-body parents), so composition is pure concatenation —

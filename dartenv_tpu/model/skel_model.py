@@ -1,6 +1,6 @@
 """SkelModel: the static articulated-model pytree.
 
-TPU-native replacement for the reference's model objects
+JAX replacement for the reference's model objects
 (`dart/dynamics/Skeleton.cpp` † object graph + `dart/utils/SkelParser.cpp` †
 output — SURVEY.md §2.4): instead of a C++ object graph reached through SWIG,
 the whole model is one frozen dataclass of arrays (leaves) and Python ints /
@@ -104,40 +104,33 @@ class SolverConfig:
     # clock for no extra accuracy (docs/SOLVERS.md escalation study)
     escalate_iters: int = dataclasses.field(
         default=8, metadata=dict(static=True))
-    # cap on the escalation batch K (one 128-lane BPP kernel tile).
-    # Measured at B=8192: capping K 256 -> 128 changed nothing (483k vs
-    # 494k env-steps/s, run noise) — the escalation's large-B cost is
-    # bandwidth-bound in its B-proportional phases (the residual einsum
-    # re-reads every env's Delassus block, plus top_k/gather/scatter),
-    # not in the K-proportional kernel.  The cap stays as a semantic
-    # bound: escalation capacity never exceeds one kernel tile, so its
-    # cost model is flat in frac for K <= 128 (docs/BENCH.md).
+    # cap on the escalation batch K: a semantic bound on the re-solve's
+    # capacity per substep (offenders beyond it rank first at the next
+    # substep).  Its value is not yet derived from a GPU measurement.
     escalate_kmax: int = dataclasses.field(
         default=128, metadata=dict(static=True))
     # Undamped refinement pivots for the tier-1 escalation re-solve.
-    # -1 = the solver's legacy formula max(iters//3, 6).  The BPP tile is
-    # a SERIAL pivot chain whose wall clock now rivals the whole fused
-    # substep (docs/BENCH.md round 4), and a warm-started refinement
-    # rarely needs the full depth — the committed per-task values are
-    # measured knees (docs/SOLVERS.md).
+    # -1 = the solver's legacy formula max(iters//3, 6).  The re-solve
+    # is a SERIAL pivot chain, and a warm-started refinement rarely needs
+    # the full depth — the committed per-task values are the knees of
+    # the CPU residual study (docs/SOLVERS.md).
     escalate_refine: int = dataclasses.field(
         default=-1, metadata=dict(static=True))
-    # Two-tier escalation (VERDICT.md r3 order #6): when > 0, rows of the
+    # Two-tier escalation: when > 0, rows of the
     # escalated K batch still above escalate_tol after the warm tier-1
     # re-solve get a SECOND, COLD re-solve at this pivot budget (the
     # round-4 adjudication showed a cold start fixes offenders the
     # warm-from-a-bad-PGS-point pivot sequence cannot).  0 disables.
     escalate_iters2: int = dataclasses.field(
         default=0, metadata=dict(static=True))
-    # Mixed-precision refinement passes applied to the escalated K batch
-    # (round 5): f64 RESIDUAL + f32 correction solve at the point's own
+    # Mixed-precision refinement passes applied to the escalated K batch:
+    # f64 RESIDUAL + f32 correction solve at the point's own
     # friction-bound fixed sets (lcp/dantzig.refine_mixed).  Breaks the
     # f32 BPP precision ceiling on ill-conditioned operators (humanwalker
     # m=47: offenders f64-solvable to 1e-14 while f32 plateaus 1e-2-class
     # — docs/SOLVERS.md "Residual tails, adjudicated") WITHOUT f64
-    # factorizations, which this TPU backend runs ~1000x slow (f64
-    # cholesky) or miscompiles (batched f64 LU).  Requires
-    # jax_enable_x64; silently inert otherwise.  0 disables.
+    # factorizations.  Requires jax_enable_x64; silently inert
+    # otherwise.  0 disables.
     escalate_ref64: int = dataclasses.field(
         default=0, metadata=dict(static=True))
     # Compensated (double-float) refinement passes for the escalated K

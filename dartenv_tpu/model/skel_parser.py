@@ -1,6 +1,6 @@
 """`.skel` world parser -> SkelModel(s).
 
-TPU-native counterpart of `dart/utils/SkelParser.cpp:~1-3000` †
+JAX counterpart of `dart/utils/SkelParser.cpp:~1-3000` †
 (SURVEY.md §2.4 "utils: parsers"): offline Python (stdlib xml.etree) that
 turns the same `<world><physics>...<skeleton>...` XML into pure array data.
 Honors the same defaults: dt from `<time_step>`, gravity from `<gravity>`

@@ -1,6 +1,6 @@
 """URDF robot parser -> SkelModel.
 
-TPU-native counterpart of the reference's URDF path
+JAX counterpart of the reference's URDF path
 (`dart/utils/urdf/DartLoader.cpp` † on urdfdom — SURVEY.md §2.4 "utils:
 parsers"): offline Python (stdlib xml.etree) producing the same pure-array
 `SkelModel` the .skel parser emits, so URDF robots drop into the identical

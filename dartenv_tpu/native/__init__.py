@@ -3,7 +3,7 @@
 The reference stack's native tier is the DART C++ engine plus ODE's C LCP
 (`dart/dynamics/*`, `dart/external/odelcpsolver/lcp.cpp` † — SURVEY.md
 §2.4).  In this framework the *hot path* native tier is JAX/XLA/Pallas on
-the TPU; this package is the host-side native tier: independent C++
+the GPU; this package is the host-side native tier: independent C++
 implementations of the same published algorithms (Featherstone ABA,
 boxed-LCP Dantzig pivoting) that serve as
 

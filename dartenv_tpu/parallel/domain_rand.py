@@ -77,30 +77,12 @@ def make_randomized_sim_step(model: SkelModel,
     """Batched substep over (batched_model, batched_state, batched_tau):
     one vmapped XLA program stepping N envs with PER-ENV physics params.
 
-    When the randomized fields are all kernel-servable
-    (engine/pallas_substep.DR_FIELDS_SUB), a TPU f32 batch runs the
-    FUSED substep kernel with the DR leaves as per-env block inputs
-    (VERDICT r4 order #2) — previously a traced model silently cost the
-    kernel path.  Non-randomized leaves of the passed model are taken
-    from the closed-over base model on that path (identical by the
-    randomize_model contract)."""
+    The model leaves are traced, so the dynamics kernel (which bakes
+    model values into its code) does not serve this path; the batched
+    PGS solve still takes the kernel on the GPU."""
     axes = model_in_axes(model, batched_fields)   # also validates fields
-    batched_fields = tuple(batched_fields)
 
-    from dartenv_tpu.engine.world import make_dr_sim_step
-
-    kstep = make_dr_sim_step(model, batched_fields)
-    if kstep is not None:
-        vstep = jax.vmap(lambda dr, s, t: kstep(s, t, dr),
-                         in_axes=(0, 0, 0))
-
-        def stepper(m, state, tau):
-            dr = tuple(getattr(m, f) for f in batched_fields)
-            return vstep(dr, state, tau)
-
-        return stepper
-
-    # fallback: the phase-wise XLA path with a traced model.
+    # the phase-wise path with a traced model.
     # layout-defining leaves must be CONCRETE at trace time (build_layout
     # reads them with numpy); under jit every argument is a tracer, so
     # rebind them from the closed-over base model

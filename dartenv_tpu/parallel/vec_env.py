@@ -4,7 +4,7 @@ This is the rebuild's replacement for what reference users hand-rolled with
 env pools (SURVEY.md §2.5 — the reference has NO parallelism; batching is
 new and first-class here).  One program steps B envs in lockstep:
 
-* `vmap(env_step)` turns every per-env op into a (B,)-wide VPU op;
+* `vmap(env_step)` turns every per-env op into a (B,)-wide elementwise op;
 * auto-reset runs the reset branch unconditionally and `select`s per env on
   done — no host sync, no data-dependent control flow (SURVEY.md §7 hard
   parts "auto-reset under vmap");

@@ -5,7 +5,7 @@ state-by-state against the reference engine.  While `/root/reference` is
 unmounted (see SURVEY.md provenance warning) the harness runs in
 *self-consistency* modes:
 
-  * f32 (TPU production dtype) vs f64 (validation dtype)
+  * f32 (production dtype) vs f64 (validation dtype)
   * JAX engine vs the native C++ golden tier (smooth dynamics)
 
 The `Trace` schema is engine-agnostic so a pydart2-backed capture can be

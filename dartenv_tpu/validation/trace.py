@@ -89,7 +89,7 @@ def compare_traces(a: Trace, b: Trace, atol: float = 1e-9,
 def self_consistency_report(asset: str, T: int = 200, seed: int = 0,
                             tau_scale: float = 1.0) -> Dict[str, Any]:
     """f32-vs-f64 self-consistency for one task asset: same seeded tau
-    sequence through both builds; f32 (TPU production mode) is held to
+    sequence through both builds; f32 (production mode) is held to
     per-step tolerance + identical discrete contact events rather than
     bitwise equality (SURVEY.md §7 "Bit-matching")."""
     from dartenv_tpu.model.skel_parser import asset_path, parse_skel

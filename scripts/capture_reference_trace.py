@@ -17,12 +17,12 @@ Usage:
 
   # later, compare a dartenv_tpu trace against it:
   python scripts/capture_reference_trace.py --env DartWalker2d-v1 \
-      --seed 0 --steps 200 --out /tmp/tpu_walker2d.npz --backend self
+      --seed 0 --steps 200 --out /tmp/jax_walker2d.npz --backend self
   python - <<'PY'
   import numpy as np
   from dartenv_tpu.validation.trace import Trace, compare_traces
   a, b = (np.load(p, allow_pickle=True)
-          for p in ("/tmp/ref_walker2d.npz", "/tmp/tpu_walker2d.npz"))
+          for p in ("/tmp/ref_walker2d.npz", "/tmp/jax_walker2d.npz"))
   ta = Trace(q=a["q"], dq=a["dq"], lam=a["lam"])
   tb = Trace(q=b["q"], dq=b["dq"], lam=b["lam"])
   print(compare_traces(ta, tb))

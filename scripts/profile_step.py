@@ -1,4 +1,5 @@
-"""Phase-level cost decomposition of an env substep on the live chip.
+"""Phase-level cost decomposition of an env substep on the GPU.
+(Kernel-vs-XLA end to end: scripts/kernel_ab.py.)
 
 Times scan-100 loops of ablated substeps to attribute cost:
   full        — production sim_step
@@ -15,11 +16,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-# ablation programs are compile-heavy on a remotely-compiled chip; cache
-# them persistently (same cache the bench harness uses)
-from dartenv_tpu.bench.throughput import _machine_cache_dir
-jax.config.update("jax_compilation_cache_dir", _machine_cache_dir("/tmp/jax_bench_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+# ablation programs are compile-heavy; cache them persistently (same
+# cache the bench harness uses)
+from dartenv_tpu.backend import enable_compile_cache
+enable_compile_cache()
 
 from dartenv_tpu.dynamics import batched
 from dartenv_tpu.engine.constraints import (
@@ -50,7 +50,7 @@ def main(batch=4096, nsteps=100, env="walker2d"):
     print(f"LCP rows m={layout.m} contacts={layout.contact_slots} "
           f"limits={len(layout.limit_dofs)} fric={len(layout.friction_dofs)}")
 
-    # production dynamics phase: the fused Pallas kernel on TPU f32
+    # production dynamics phase: the fused Pallas kernel on GPU f32
     # batches (set DARTENV_NO_DYN_KERNEL=1 to attribute the kernel's
     # contribution by profiling the XLA phase instead)
     from dartenv_tpu.dynamics.pallas_dynamics import make_dynamics_phase
@@ -140,65 +140,11 @@ def main(batch=4096, nsteps=100, env="walker2d"):
     print(f"constraints total: {(results['full']-results['no_constr'])*1e3:.2f} ms")
 
 
-def main_production(batch=4096, nsteps=100, env="walker2d"):
-    """Time the PRODUCTION substep across the round-4 architecture tiers:
-    fused substep kernel (with/without escalation), the 3-kernel phase
-    path, and the pure XLA path — end-to-end, since the fused kernel has
-    no interior phase boundaries to ablate."""
-    import dataclasses as _dc
-    import os
-
-    from dartenv_tpu.engine.world import make_sim_step, init_state
-
-    variants = [
-        ("fused substep kernel (production)", {}, None),
-        ("fused, escalation off", {}, dict(escalate_frac=0.0)),
-        ("3-kernel phase path", {"DARTENV_NO_SUBSTEP_KERNEL": "1"}, None),
-        ("pure XLA path (r3)", {"DARTENV_NO_SUBSTEP_KERNEL": "1",
-                                "DARTENV_NO_DYN_KERNEL": "1"}, None),
-    ]
-    task = make_task(env, dtype=jnp.float32)
-    for label, envvars, overrides in variants:
-        model = task.model
-        if overrides:
-            model = model.replace(
-                solver=_dc.replace(model.solver, **overrides))
-        for k, v in envvars.items():
-            os.environ[k] = v
-        try:
-            step = make_sim_step(model)
-        finally:
-            for k in envvars:
-                os.environ.pop(k, None)
-        s0 = init_state(model)
-        state = jax.tree_util.tree_map(
-            lambda x: jnp.broadcast_to(x, (batch,) + x.shape), s0)
-        tau = jnp.zeros((batch, model.n), dtype=jnp.float32)
-
-        def rollout(st, tau, step=step):
-            def body(st2, _):
-                st3, _c = jax.vmap(step)(st2, tau)
-                return st3, ()
-            st2, _ = jax.lax.scan(body, st, None, length=nsteps)
-            return st2.q
-
-        t = timed(jax.jit(rollout), state, tau)
-        per = t / (batch * nsteps) * 1e9
-        print(f"{label:38s}: {t*1e3:8.2f} ms  ({per:7.1f} ns/env-substep)")
-
-
 if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("batch", nargs="?", type=int, default=4096)
     ap.add_argument("--env", default="walker2d")
     ap.add_argument("--nsteps", type=int, default=100)
-    ap.add_argument("--production", action="store_true",
-                    help="time the production substep across the "
-                         "kernel-architecture tiers instead of the "
-                         "phase-ablation table")
     a = ap.parse_args()
-    if a.production:
-        main_production(batch=a.batch, nsteps=a.nsteps, env=a.env)
-    else:
-        main(batch=a.batch, nsteps=a.nsteps, env=a.env)
+    main(batch=a.batch, nsteps=a.nsteps, env=a.env)

@@ -1,9 +1,9 @@
-"""Multi-process distributed path (VERDICT.md r1 missing #8).
+"""Multi-process distributed path.
 
 The reference has no distributed layer (SURVEY.md §2.5); the rebuild's
 multi-host story is standard JAX SPMD: `jax.distributed.initialize()` then
-the same shard_map code, collectives riding the runtime transport (ICI on
-TPU; Gloo here on CPU).  This test ACTUALLY runs it: two OS processes with
+the same shard_map code, collectives riding the runtime transport (NCCL
+on GPUs; Gloo here on CPU).  This test ACTUALLY runs it: two OS processes with
 2 virtual CPU devices each form one 4-device global mesh, run the sharded
 deterministic-policy rollout on DartCartPole, and both processes' psum'd
 episode stats must equal a single-process unsharded rollout of the same

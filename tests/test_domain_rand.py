@@ -97,3 +97,15 @@ def test_layout_leaves_rejected():
             assert False, f"{leaf} should be rejected"
         except ValueError:
             pass
+
+
+def test_bench_dr_smoke():
+    """bench.py --dr's harness runs on CPU: finite per-env randomized
+    physics and a positive rate, naming the device it ran on."""
+    from dartenv_tpu.bench.throughput import bench_dr
+
+    r = bench_dr("hopper", batch=8, substeps=4, iters=1)
+    assert r["env_steps_per_s_per_chip"] > 0
+    assert r["state_finite"]
+    assert r["device"]["platform"] == "cpu"
+    assert r["kernels"] == []

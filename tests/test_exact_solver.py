@@ -179,14 +179,13 @@ def test_dantzig_warm_start_consistency():
                                    atol=1e-6, rtol=1e-5)
 
 
-def test_pallas_bpp_matches_cpp_golden_on_engine_problems():
-    """The Pallas BPP kernel (interpret mode, f64) solves ENGINE-captured
-    boxed LCPs to the same complementarity points as the C++ golden —
-    the same adjudication rules as the XLA-path tests above, on a
-    shorter rollout (the kernel's XLA-equivalence is covered problem-
-    for-problem in tests/test_pallas_kernels.py)."""
+def test_batched_exact_solver_matches_cpp_golden_on_engine_problems():
+    """The vmapped exact solver (make_exact_solver, the escalation's
+    K-env batch path) solves ENGINE-captured boxed LCPs to the same
+    complementarity points as the C++ golden — the same adjudication
+    rules as the per-problem tests above, on one batched call."""
     from dartenv_tpu.envs.walker2d import make_walker2d_task
-    from dartenv_tpu.lcp.pallas_bpp import bpp_solve_pallas
+    from dartenv_tpu.lcp.dantzig import make_exact_solver
 
     task = make_walker2d_task(dtype=jnp.float64, lcp_solver="dantzig")
     model = task.model
@@ -212,9 +211,9 @@ def test_pallas_bpp_matches_cpp_golden_on_engine_problems():
 
     findex = probs[0]["findex"]
     stack = lambda key: jnp.asarray(np.stack([p[key] for p in probs]))
-    lam_pal = np.asarray(bpp_solve_pallas(
-        stack("A"), stack("b"), stack("lo"), stack("hi"), findex,
-        stack("mu"), stack("active"), interpret=True))
+    lam_pal = np.asarray(jax.vmap(make_exact_solver(findex))(
+        stack("A"), stack("b"), stack("lo"), stack("hi"), stack("mu"),
+        stack("active"), jnp.zeros_like(stack("b"))))
 
     n_mismatch = 0
     for i, p in enumerate(probs):

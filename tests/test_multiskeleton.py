@@ -265,7 +265,7 @@ def test_facade_exposes_all_skeletons():
 
 def test_composed_model_vmapped_batch():
     """The composed multi-skeleton model steps under vmap like any other
-    SkelModel (the TPU batching path is skeleton-count agnostic)."""
+    SkelModel (the batching path is skeleton-count agnostic)."""
     model = compose_models([_pendulum_model(), _box_model()])
     step = make_sim_step(model)
     B = 16

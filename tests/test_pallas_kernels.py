@@ -1,22 +1,19 @@
-"""Pallas kernel equivalence in interpret mode (CPU).
+"""PGS kernel equivalence in interpret mode (CPU).
 
-The two TPU kernels — lane-axis PGS (lcp/pallas_pgs.py) and the
-block-principal-pivoting exact solver (lcp/pallas_bpp.py, SURVEY.md §7's
-"batched dense boxed-LCP Dantzig in Pallas") — must match their XLA
-reference formulations on the same problems.  `interpret=True` runs the
-kernel logic on CPU so CI covers the kernels without a chip; the live
-chip runs the compiled versions through the same call sites
-(make_pgs_solver / make_exact_solver batch rules).
+The Triton-route PGS kernel (lcp/pallas_pgs.py) must match the XLA
+reference sweep (lcp/pgs.py) on the same problems, with its rows padded
+to a power of two and its env batch padded to whole tiles.
+`interpret=True` runs the kernel logic on CPU; the GPU runs the compiled
+kernel through the same call sites (make_pgs_solver / make_hybrid_solver
+batch rules), and chip_smoke.py compares it there.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dartenv_tpu.lcp.dantzig import dantzig_solve
 from dartenv_tpu.lcp.hybrid import comp_residual
-from dartenv_tpu.lcp.pallas_bpp import bpp_solve_pallas
-from dartenv_tpu.lcp.pallas_pgs import pgs_solve_pallas
+from dartenv_tpu.lcp.pallas_pgs import padded_rows, pgs_solve_pallas
 from dartenv_tpu.lcp.pgs import pgs_solve
 
 
@@ -61,38 +58,41 @@ def test_pallas_pgs_matches_xla_sweeps():
                                rtol=1e-5, atol=1e-6)
 
 
-def test_pallas_bpp_matches_xla_exact():
-    A, b, lo, hi, mu, act, findex = _problems(seed=2)
+@pytest.mark.parametrize("nc,nl,B", [
+    (1, 2, 3),      # m=5 -> 8 rows, B=3 < one tile
+    (4, 5, 33),     # m=17 -> 32 rows, B=33 = one tile + 1
+    (8, 0, 8),      # m=24 (walker2d's count) -> 32 rows
+    (2, 2, 32),     # m=8: already a power of two, B = one whole tile
+])
+def test_pallas_pgs_row_and_env_padding(nc, nl, B):
+    """Non-power-of-two m and B: pad rows (active=0, unit diagonal) stay
+    pinned at 0 and never perturb the real rows, and pad envs never
+    leak into real ones — the kernel equals the XLA sweep, with and
+    without the fused residual."""
+    A, b, lo, hi, mu, act, findex = _problems(B=B, nc=nc, nl=nl,
+                                              seed=10 + B)
+    m = b.shape[1]
+    assert padded_rows(m) >= m and padded_rows(m) & (padded_rows(m) - 1) == 0
+    lam0 = 0.1 * jnp.abs(b)
     lam_ref = jax.vmap(
-        lambda *a: dantzig_solve(a[0], a[1], a[2], a[3], findex, a[4],
-                                 a[5])
-    )(A, b, lo, hi, mu, act)
-    lam_pal = bpp_solve_pallas(A, b, lo, hi, findex, mu, act,
-                               interpret=True)
-    r_ref = np.asarray(comp_residual(A, b, lam_ref, lo, hi, findex, mu,
-                                     act))
-    r_pal = np.asarray(comp_residual(A, b, lam_pal, lo, hi, findex, mu,
-                                     act))
-    # both are exact solvers: every problem at solver precision; impulses
-    # may differ at friction-multiplicity points, so compare residuals
-    assert r_pal.max() < 1e-4, f"pallas residuals {r_pal}"
-    assert r_ref.max() < 1e-4
-    np.testing.assert_allclose(np.asarray(lam_pal), np.asarray(lam_ref),
-                               rtol=5e-3, atol=5e-3)
-
-
-def test_pallas_bpp_warm_start_refinement():
-    """Warm-started short-budget BPP (the escalation configuration)
-    refines a PGS point to solver precision."""
-    A, b, lo, hi, mu, act, findex = _problems(seed=3)
-    lam_pgs = jax.vmap(
         lambda *a: pgs_solve(a[0], a[1], a[2], a[3], findex, a[4], a[5],
-                             iters=10)
-    )(A, b, lo, hi, mu, act)
-    lam = bpp_solve_pallas(A, b, lo, hi, findex, mu, act, iters=8,
-                           polish_iters=3, lam0=lam_pgs, interpret=True)
-    r = np.asarray(comp_residual(A, b, lam, lo, hi, findex, mu, act))
-    assert r.max() < 1e-4, f"refined residuals {r}"
+                             iters=6, lam0=a[6])
+    )(A, b, lo, hi, mu, act, lam0)
+    lam, res = pgs_solve_pallas(A, b, lo, hi, findex, mu, act, iters=6,
+                                lam0=lam0, interpret=True,
+                                return_residual=True)
+    assert lam.shape == (B, m) and res.shape == (B,)
+    np.testing.assert_allclose(np.asarray(lam), np.asarray(lam_ref),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        np.asarray(res),
+        np.asarray(comp_residual(A, b, lam, lo, hi, findex, mu, act)),
+        rtol=1e-4, atol=1e-7)
+
+
+def test_padded_rows():
+    assert [padded_rows(m) for m in (1, 2, 3, 24, 32, 41, 47)] == \
+        [1, 2, 4, 32, 32, 64, 64]
 
 
 def test_pallas_pgs_fused_residual_matches_metric():

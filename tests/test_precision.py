@@ -1,14 +1,13 @@
-"""Matmul-precision gate for the XLA physics path (VERDICT r4 order #1).
+"""Matmul-precision gate for the XLA physics path.
 
-Round 4's on-chip forensics measured the r1-r3 XLA TPU path at
-1e-2-class per-substep error vs CPU-f64: default-precision dot_generals
-run single-pass bf16 on the MXU (docs/BENCH.md round-4b finding #1).
-The fix is trace-time (`jax.default_matmul_precision('highest')` around
+Default-precision dot_generals may run in a reduced-precision matrix
+unit (TF32 on the GPU), which costs 1e-2-class per-substep error vs
+CPU-f64 on this path.  The fix is trace-time (`jax.default_matmul_precision('highest')` around
 the step trace in engine/world.py and envs/base.py), so it can be gated
-WITHOUT a TPU: walk the traced jaxpr and require every dot_general —
+WITHOUT a GPU: walk the traced jaxpr and require every dot_general —
 including those inside scan/cond/pjit subjaxprs — to carry HIGHEST
 precision.  A new default-precision einsum/`@` on the hot path fails
-here instead of as silent physics drift on the chip.
+here instead of as silent physics drift on the GPU.
 """
 import os
 
@@ -61,9 +60,9 @@ def _assert_all_highest(jaxpr, what):
 
 def _xla_only(monkeypatch):
     # force the phase-wise XLA path — the exact path under test (the
-    # kernels are VPU mul/add and carry no dot_generals)
+    # kernels are elementwise mul/add and carry no dot_generals)
     monkeypatch.setenv("DARTENV_NO_DYN_KERNEL", "1")
-    monkeypatch.setenv("DARTENV_NO_SUBSTEP_KERNEL", "1")
+    monkeypatch.setenv("DARTENV_NO_PGS_KERNEL", "1")
 
 
 @pytest.mark.parametrize("env", ["walker2d", "humanwalker"])
@@ -88,8 +87,8 @@ def test_sim_step_xla_path_all_dots_highest(monkeypatch, env):
 
 
 def test_sim_step_perturbation_and_servo_paths_highest(monkeypatch):
-    """f_ext / servo_target take the branch the kernels never serve —
-    the exact path VERDICT r4 weak #1 called out."""
+    """f_ext / servo_target take the branch the fused kernels never
+    serve."""
     from dartenv_tpu.bench.throughput import make_task
 
     _xla_only(monkeypatch)
@@ -133,12 +132,10 @@ def test_lcp_capture_dots_highest(monkeypatch):
 def test_pallas_kernels_x64_clean():
     """Under jax_enable_x64 (the mixed-precision escalation tier's mode)
     the Pallas kernel bodies must stay f64-free: weak-f64 Python literals
-    (`jnp.where(c, -1.0, 1.0)`) inside a kernel make Mosaic's convert
-    lowering recurse to a RecursionError on the chip.  Gate on the traced
-    jaxpr so the leak fails on CPU, not mid-bench (round 5)."""
+    (`jnp.where(c, -1.0, 1.0)`) inside a kernel would promote its f32
+    arithmetic and stores to f64.  Gate on the traced jaxpr so the leak
+    fails on CPU, not mid-bench."""
     from dartenv_tpu.bench.throughput import make_task
-    from dartenv_tpu.engine.pallas_substep import (
-        _SubStatic, substep_pallas)
     from dartenv_tpu.dynamics.pallas_dynamics import (
         _Static, dynamics_pallas)
 
@@ -147,33 +144,20 @@ def test_pallas_kernels_x64_clean():
     try:
         task = make_task("walker2d", dtype=jnp.float32)
         model = task.model
-        st = _SubStatic(model)
         B = 8
         z = jnp.zeros((B, model.n), jnp.float32)
-        lam = jnp.zeros((B, 3 * st.ns + (st.m_c - 3 * st.cap)),
-                        jnp.float32)
-        jaxpr = jax.make_jaxpr(
-            lambda *a: substep_pallas(model, *a, st=st, interpret=True)
-        )(z, z, z, lam)
-        assert "f64" not in str(jaxpr), "f64 leaked into substep kernel"
         dst = _Static(model)
         jaxpr = jax.make_jaxpr(
             lambda *a: dynamics_pallas(model, *a, st=dst, interpret=True)
         )(z, z, z)
         assert "f64" not in str(jaxpr), "f64 leaked into dynamics kernel"
 
-        from dartenv_tpu.lcp.pallas_bpp import bpp_solve_pallas
         from dartenv_tpu.lcp.pallas_pgs import pgs_solve_pallas
 
         m = 6
         fi = np.full(m, -1, np.int32)
         Ab = jnp.eye(m, dtype=jnp.float32)[None].repeat(4, 0) * 2.0
         vb = jnp.zeros((4, m), jnp.float32)
-        jaxpr = jax.make_jaxpr(
-            lambda A, b: bpp_solve_pallas(A, b, b, b + 1.0, fi, b,
-                                          b + 1.0, interpret=True)
-        )(Ab, vb)
-        assert "f64" not in str(jaxpr), "f64 leaked into BPP kernel"
         jaxpr = jax.make_jaxpr(
             lambda A, b: pgs_solve_pallas(A, b, b, b + 1.0, fi, b,
                                           b + 1.0, interpret=True)

@@ -4,7 +4,7 @@ The f32 BPP residual plateau on ill-conditioned operators is the
 free-set solve's rounding (docs/SOLVERS.md "Residual tails,
 adjudicated": humanwalker offenders are f64-solvable to 1e-14 while f32
 plateaus 1e-2-class).  refine_mixed computes the residual in f64
-(elementwise — the only f64 this TPU backend runs well) and the
+(elementwise mul+reduce) and the
 correction in f32, with per-problem keep-best acceptance.  Pins:
 monotonicity (never worse than the input point) and a real accuracy
 lift on conditioned problems with correct active sets.

@@ -41,7 +41,7 @@ def test_trace_catches_divergence():
 
 
 def test_f32_self_consistency_hopper():
-    """TPU production dtype tracks the f64 build: tolerance comparison +
+    """The f32 production dtype tracks the f64 build: tolerance comparison +
     identical discrete contact on/off events over a short horizon
     (SURVEY.md §7 'Bit-matching' strategy)."""
     rep = self_consistency_report("hopper_capsule.skel", T=60, seed=0,
